@@ -1,4 +1,4 @@
-# Developer entry points for rustic_tpu.
+# Developer entry points for rustic.
 
 .PHONY: test test-fast bench native render-demo clean
 
@@ -15,7 +15,7 @@ native:
 	./native/build.sh
 
 render-demo:
-	python -m rustic_tpu.cli render assets/scenes/DarkCornell.glb \
+	python -m rustic.cli render assets/scenes/DarkCornell.glb \
 		--out cornell.png --spp 128 --nee mis --tonemap aces_narkowicz
 
 clean:

@@ -1,15 +1,15 @@
 // Binned-SAH BVH builder — native fast path for the host scene pipeline.
 //
-// Same algorithm and output layout as rustic_tpu/scene/bvh.py (which is
+// Same algorithm and output layout as rustic/scene/bvh.py (which is
 // the always-available fallback): SoA nodes (aabb_min/aabb_max[N][3],
 // left_first[N], count[N]), leaf iff count > 0, children at
 // (left, left+1), triangles reordered via the returned permutation.
 //
 // The reference keeps its builder in host Rust (src/bvh.rs); this is the
-// equivalent native component for the TPU framework's runtime. Build:
+// equivalent native component for this framework's runtime. Build:
 //   native/build.sh  ->  native/libbvh.so
 //
-// Exposed via ctypes (rustic_tpu/scene/bvh_native.py).
+// Exposed via ctypes (rustic/scene/bvh_native.py).
 
 #include <algorithm>
 #include <cmath>

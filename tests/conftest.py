@@ -2,17 +2,25 @@
 
 The CPU backend is the framework's debugging twin (the same property the
 reference gets from running kernels/ on the host via rayon,
-src/trace.rs:226-327): every op in rustic_tpu is backend-agnostic JAX,
-so the full test suite runs without a TPU. The 8 virtual devices let
-sharding tests exercise real Mesh/shard_map paths.
+src/trace.rs:226-327): every op in rustic outside the GPU scan kernel is
+backend-agnostic JAX, so the suite runs without a GPU (the scan kernel
+runs in Pallas interpret mode). The 8 virtual devices let sharding tests
+exercise real Mesh/shard_map paths. Tests marked `gpu` need the card and
+skip here; `python chip_smoke.py` runs the same checks on it.
 """
 
 import os
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 os.environ["JAX_PLATFORMS"] = "cpu"
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
 )
+# The tests' compile cache is written with zlib (below), which a zstd
+# process cannot read: keep it apart from the program's own cache, at a
+# fixed path inside the checkout.
+os.environ["JAX_COMPILATION_CACHE_DIR"] = os.path.join(REPO, ".jax_cache", "tests")
 
 import jax  # noqa: E402
 
@@ -22,7 +30,7 @@ jax.config.update("jax_platforms", "cpu")
 # compressing a large persistent-cache entry (reproducible at the same
 # executable, only after ~200 prior compiles in-process; standalone
 # the same compile+write succeeds). Fall back to zlib for cache writes
-# during tests — correctness-neutral. See round-3 notes.
+# during tests — correctness-neutral.
 try:  # pragma: no cover - environment workaround
     from jax._src import compilation_cache as _cc
 
@@ -31,35 +39,18 @@ try:  # pragma: no cover - environment workaround
     _cc.zstandard = None
     if hasattr(_cc, "zstd"):
         _cc.zstd = None
-    # The compression algorithm choice is module-global (no per-entry
-    # header), so zlib-written entries are NOT readable by zstd-mode
-    # processes: keep the tests' cache strictly separate from any
-    # TPU/bench cache, including a user-exported one.
-    # "0" is the documented cache-DISABLE sentinel (rustic_tpu/__init__
-    # checks `_cache_dir != "0"`): preserve it instead of rewriting it
-    # to a relative "0_tests" directory that silently re-enables caching.
-    _cache = os.environ.get("RUSTIC_TPU_XLA_CACHE")
-    os.environ["RUSTIC_TPU_XLA_CACHE"] = (
-        "0" if _cache == "0"
-        else _cache.rstrip("/") + "_tests"
-        if _cache
-        else os.path.expanduser("~/.cache/rustic_tpu_xla_tests")
-    )
-    # ... and don't seed the shipped (zstd-compressed) snapshot into it:
-    # zlib-mode test processes can't read zstd entries.
-    os.environ["RUSTIC_TPU_XLA_SEED"] = "0"
-except Exception:
+except ImportError:
     pass
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
 
-SCENES = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets", "scenes")
+SCENES = os.path.join(REPO, "assets", "scenes")
 
 
 @pytest.fixture(scope="session")
 def furnace_world():
-    from rustic_tpu.scene.world import World
+    from rustic.scene.world import World
 
     return World.from_path(os.path.join(SCENES, "FurnaceTest.glb"))
 
@@ -71,7 +62,7 @@ def furnace_scene(furnace_world):
 
 @pytest.fixture(scope="session")
 def cornell_world():
-    from rustic_tpu.scene.world import World
+    from rustic.scene.world import World
 
     return World.from_path(os.path.join(SCENES, "DarkCornell.glb"))
 
@@ -83,3 +74,12 @@ def cornell_scene(cornell_world):
 
 def scene_path(name: str) -> str:
     return os.path.join(SCENES, name)
+
+
+@pytest.fixture
+def gpu():
+    """Skip unless JAX's default backend is a GPU. Decided inside the
+    fixture, never at import, so every xdist worker collects the same
+    tests."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU (run on the card through chip_smoke.py)")

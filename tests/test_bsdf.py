@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from rustic_tpu.ops import bsdf as B
-from rustic_tpu.ops import sampling as s
+from rustic.ops import bsdf as B
+from rustic.ops import sampling as s
 
 
 def _rands(n, seed):

@@ -1,7 +1,7 @@
 import numpy as np
 import pytest
 
-from rustic_tpu.scene.bvh import _build_bvh_numpy, build_bvh, validate_bvh
+from rustic.scene.bvh import _build_bvh_numpy, build_bvh, validate_bvh
 
 
 def _tri_bounds(verts, tris):

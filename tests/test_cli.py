@@ -5,7 +5,7 @@ import os
 import numpy as np
 import pytest
 
-from rustic_tpu.cli import main
+from rustic.cli import main
 from tests.conftest import scene_path
 
 
@@ -38,10 +38,11 @@ def test_cli_render_png_and_hdr(tmp_path, capsys):
     assert film.shape == (16, 24, 3)
     assert np.isfinite(film).all()
 
-    from PIL import Image
+    from rustic.utils.png import decode_png
 
-    img = Image.open(out_png)
-    assert img.size == (24, 16)
+    with open(out_png, "rb") as f:
+        img = decode_png(f.read())
+    assert img.shape == (16, 24, 3)
 
 
 def test_cli_progressive_with_checkpoint(tmp_path):
@@ -110,32 +111,31 @@ def test_cli_camera_and_sun_flags(tmp_path):
     assert os.path.exists(out_png)
 
 
-def test_dot_flag_parses():
-    from rustic_tpu.cli import build_parser
+def test_engine_flag_choices():
+    """The engine choices are auto and the three engines; the names of
+    removed kernels and flags are rejected by the parser."""
+    from rustic.cli import build_parser
 
-    args = build_parser().parse_args(
-        ["render", "x.glb", "--dot", "mixed2"]
-    )
-    assert args.dot == "mixed2"
+    parser = build_parser()
+    for engine in ("auto", "brute", "bvh", "scan"):
+        assert parser.parse_args(["render", "x.glb", "--engine", engine]).engine == engine
+    with pytest.raises(SystemExit):
+        parser.parse_args(["render", "x.glb", "--engine", "flash"])
+    with pytest.raises(SystemExit):
+        parser.parse_args(["render", "x.glb", "--dot", "f32"])
 
 
-def test_cli_dot_flag_renders(tmp_path, monkeypatch):
-    """--dot sets RUSTIC_FLASH_DOT before rendering (regression: a
-    function-local 'import os' shadowed the module import and raised
-    UnboundLocalError whenever --dot was not 'auto')."""
-    monkeypatch.delenv("RUSTIC_FLASH_DOT", raising=False)
-    out = os.path.join(tmp_path, "d.png")
-    rc = main(
-        [
-            "render", scene_path("DarkCornell.glb"),
-            "--out", out, "--spp", "1", "--size", "8x8",
-            "--bounces", "1", "--dot", "f32",
-        ]
-    )
-    assert rc == 0
-    assert os.environ.get("RUSTIC_FLASH_DOT") == "f32"
-    os.environ.pop("RUSTIC_FLASH_DOT", None)
-    assert os.path.exists(out)
+def test_cli_scan_engine_needs_gpu(tmp_path):
+    """--engine scan on a CPU host fails with a message instead of
+    falling back to an interpreted kernel."""
+    with pytest.raises(ValueError, match="needs a GPU"):
+        main(
+            [
+                "render", scene_path("DarkCornell.glb"),
+                "--out", os.path.join(tmp_path, "s.png"), "--spp", "1",
+                "--size", "8x8", "--bounces", "1", "--engine", "scan",
+            ]
+        )
 
 
 def test_cli_checkpoint_without_npz_suffix(tmp_path):
@@ -154,7 +154,7 @@ def test_cli_checkpoint_without_npz_suffix(tmp_path):
     assert main(args(2)) == 0
     assert os.path.exists(ckpt)
 
-    from rustic_tpu.runtime.state import Checkpoint
+    from rustic.runtime.state import Checkpoint
 
     assert Checkpoint.load(ckpt).samples == 2
     # resume continues toward the (raised) total target

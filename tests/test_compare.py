@@ -4,9 +4,15 @@ import os
 import numpy as np
 import pytest
 
-from rustic_tpu.cli import main
-from rustic_tpu.config import NextEventEstimation, TracingConfig
-from rustic_tpu.utils.compare import compare_engines, reference_compare, rmse
+from rustic.cli import main
+from rustic.config import NextEventEstimation, TracingConfig
+from rustic.utils.compare import (
+    REFERENCE_FILMS,
+    compare_engines,
+    reference_compare,
+    reference_film_case,
+    rmse,
+)
 from tests.conftest import scene_path
 
 
@@ -35,6 +41,24 @@ def test_reference_compare_roundtrip(cornell_scene, tmp_path):
     # same spp as reference -> identical sampler prefix differences only
     out2 = reference_compare(cornell_scene, cfg, samples=8, reference_path=ref)
     assert out2["rmse"] < 1e-6
+
+
+@pytest.mark.parametrize("case", REFERENCE_FILMS, ids=lambda c: c[2].split("_")[0])
+def test_reference_film_pixels_match_this_code(case):
+    """A few pixels of each committed film, re-rendered here at the
+    film's own spp with the sample set render_image gives them, agree
+    to float divergence (the chip gate's RMSE < 1e-3), far below the
+    Monte-Carlo scale: the films were made by this integrator."""
+    from rustic.config import RenderSettings
+    from rustic.runtime.render import pixel_offsets, render_pixels
+
+    scene, config, spp, ref = reference_film_case(case)
+    w, h = config.width, config.height
+    idx = np.random.default_rng(0).choice(w * h, 16, replace=False)
+    px, py = (idx % w).astype(np.int32), (idx // w).astype(np.int32)
+    offsets = pixel_offsets(w, h, RenderSettings().use_blue_noise)[idx]
+    film = np.asarray(render_pixels(scene, config, px, py, spp, offsets=offsets)) / spp
+    assert rmse(film, ref.reshape(-1, 3)[idx]) < 1e-3
 
 
 @pytest.mark.slow  # CLI end-to-end render

@@ -18,9 +18,9 @@ import os
 import numpy as np
 import pytest
 
-from rustic_tpu.config import NextEventEstimation, RenderSettings, TracingConfig
-from rustic_tpu.runtime.denoise import denoise
-from rustic_tpu.scene.world import World
+from rustic.config import NextEventEstimation, RenderSettings, TracingConfig
+from rustic.runtime.denoise import denoise
+from rustic.scene.world import World
 from tests.conftest import scene_path
 
 REF = os.path.join(
@@ -55,7 +55,7 @@ def test_atrous_improves_noisy_render_rmse():
     cut RMSE vs the 2048-spp ground truth (the reference validates its
     denoiser by eye in the viewer; this is the quantitative version),
     keep energy, and stay finite."""
-    from rustic_tpu.runtime.render import render_image
+    from rustic.runtime.render import render_image
 
     if not os.path.exists(REF):
         pytest.skip("ground-truth film not present")
@@ -89,3 +89,27 @@ def test_atrous_flat_region_converges():
     assert np.isfinite(out).all()
     assert abs(float(out.mean()) - float(noisy.mean())) < 5e-3
     assert float(out.std()) < 0.4 * float(noisy.std())
+
+
+def test_luminance_and_firefly_clamp_match_float64():
+    """The luminance dot (full f32, not TF32) and the firefly clamp
+    against a float64 NumPy twin of the same filter."""
+    import jax.numpy as jnp
+
+    from rustic.runtime.denoise import _LUM, _clamp_fireflies, _luminance
+
+    rng = np.random.default_rng(3)
+    img = rng.uniform(0.0, 1.0, (12, 10, 3))
+    img[4, 5] = 40.0  # a firefly
+    np.testing.assert_allclose(
+        np.asarray(_luminance(jnp.asarray(img, jnp.float32))),
+        img @ _LUM.astype(np.float64), rtol=1e-6,
+    )
+    lum = img @ _LUM.astype(np.float64)
+    neigh = [np.roll(lum, (dy, dx), axis=(0, 1))
+             for dy in (-1, 0, 1) for dx in (-1, 0, 1) if (dy, dx) != (0, 0)]
+    cap = np.median(np.stack(neigh), axis=0) * 2.0 + 1e-4
+    expect = img * np.where(lum > cap, cap / np.maximum(lum, 1e-9), 1.0)[..., None]
+    got = np.asarray(_clamp_fireflies(jnp.asarray(img, jnp.float32)))
+    np.testing.assert_allclose(got, expect, rtol=1e-5, atol=1e-6)
+    assert got[4, 5].sum() < 5.0

@@ -14,7 +14,7 @@ import zlib
 import numpy as np
 import pytest
 
-from rustic_tpu.scene.fbx import load_fbx
+from rustic.scene.fbx import load_fbx
 
 # ---------------------------------------------------------------- writer
 
@@ -194,7 +194,7 @@ def test_fbx_lcl_transform(tmp_path):
 def test_fbx_winding_matches_obj(tmp_path):
     """The same triangle through FBX and OBJ yields identical
     renderer-space geometry."""
-    from rustic_tpu.scene.obj import load_obj
+    from rustic.scene.obj import load_obj
 
     verts = np.array([0, 0, 0, 1, 0, 0, 0, 2, 0], np.float64)
     pvi = np.array([0, 1, -3], np.int32)
@@ -396,9 +396,9 @@ def test_fbx_rejects_garbage(tmp_path):
 
 
 def test_fbx_renders_through_from_path(tmp_path):
-    from rustic_tpu.config import RenderSettings, TracingConfig
-    from rustic_tpu.runtime.render import render_image
-    from rustic_tpu.scene.world import World
+    from rustic.config import RenderSettings, TracingConfig
+    from rustic.runtime.render import render_image
+    from rustic.scene.world import World
 
     path = str(tmp_path / "cube.fbx")
     _cube_fbx(path)

@@ -15,8 +15,8 @@ import struct
 import numpy as np
 import pytest
 
-from rustic_tpu.scene.gltf import load_glb
-from rustic_tpu.scene.obj import load_obj
+from rustic.scene.gltf import load_glb
+from rustic.scene.obj import load_obj
 from tests.conftest import scene_path
 
 
@@ -116,7 +116,7 @@ def test_obj_quad(tmp_path):
 def test_obj_winding_matches_glb_convention(tmp_path):
     """The same single triangle authored in OBJ and via the GLB writer
     must produce identical renderer-space geometry (winding + swizzle)."""
-    from rustic_tpu.scene.glb_write import MaterialSpec, MeshSpec, write_glb
+    from rustic.scene.glb_write import MaterialSpec, MeshSpec, write_glb
 
     tri_obj = _write(
         tmp_path,
@@ -174,10 +174,10 @@ def test_obj_textured_matches_glb(tmp_path):
     pins the OBJ loader's V flip to the validated GLB convention."""
     from PIL import Image
 
-    from rustic_tpu.config import RenderSettings, TracingConfig
-    from rustic_tpu.runtime.render import render_image
-    from rustic_tpu.scene.glb_write import MaterialSpec, MeshSpec, write_glb
-    from rustic_tpu.scene.world import World
+    from rustic.config import RenderSettings, TracingConfig
+    from rustic.runtime.render import render_image
+    from rustic.scene.glb_write import MaterialSpec, MeshSpec, write_glb
+    from rustic.scene.world import World
 
     # Distinctive vertically-asymmetric texture.
     tex = np.zeros((8, 8, 3), np.float32)
@@ -264,7 +264,7 @@ def _stl_binary(tris: np.ndarray) -> bytes:
 
 
 def test_stl_binary_and_ascii_match(tmp_path):
-    from rustic_tpu.scene.mesh_formats import load_stl
+    from rustic.scene.mesh_formats import load_stl
 
     tris = np.array(
         [[[0, 0, 0], [1, 0, 0], [0, 2, 0]], [[0, 0, 0], [0, 2, 0], [-1, 0, 0]]],
@@ -291,7 +291,7 @@ def test_stl_binary_and_ascii_match(tmp_path):
 
 
 def test_ply_ascii_and_binary_match(tmp_path):
-    from rustic_tpu.scene.mesh_formats import load_ply
+    from rustic.scene.mesh_formats import load_ply
 
     ascii_ply = (
         "ply\nformat ascii 1.0\n"
@@ -329,7 +329,7 @@ def test_stl_soup_normals_weld_across_facets(tmp_path):
     """STL facets don't share vertices; smooth normals must still weld
     by position — a roof of two tilted quads gets an averaged (vertical)
     normal along the shared ridge, not per-facet flat normals."""
-    from rustic_tpu.scene.mesh_formats import load_stl
+    from rustic.scene.mesh_formats import load_stl
 
     #   /\   two triangles meeting at the ridge x=0 (z in STL space)
     tris = np.array(
@@ -358,7 +358,7 @@ def test_stl_soup_normals_weld_across_facets(tmp_path):
 def test_ply_vertex_with_aux_list_property(tmp_path):
     """A binary vertex element that mixes scalars with a list property
     must keep its x/y/z (scalars were previously discarded)."""
-    from rustic_tpu.scene.mesh_formats import load_ply
+    from rustic.scene.mesh_formats import load_ply
 
     header = (
         b"ply\nformat binary_little_endian 1.0\n"
@@ -403,9 +403,9 @@ def test_obj_multiple_mtllibs(tmp_path):
 
 def test_stl_renders_through_from_path(tmp_path):
     """World.from_path dispatch + a light: STL soup renders non-black."""
-    from rustic_tpu.config import TracingConfig, RenderSettings
-    from rustic_tpu.runtime.render import render_image
-    from rustic_tpu.scene.world import World
+    from rustic.config import TracingConfig, RenderSettings
+    from rustic.runtime.render import render_image
+    from rustic.scene.world import World
 
     floor = np.array(
         [[[-5, 0, -5], [5, 0, -5], [5, 0, 5]], [[-5, 0, -5], [5, 0, 5], [-5, 0, 5]]],
@@ -426,9 +426,9 @@ def test_stl_renders_through_from_path(tmp_path):
 def test_obj_renders_end_to_end(tmp_path):
     """An emissive OBJ quad over a diffuse floor must render non-black
     through World.from_path (format dispatch) on the brute engine."""
-    from rustic_tpu.config import RenderSettings, TracingConfig
-    from rustic_tpu.runtime.render import render_image
-    from rustic_tpu.scene.world import World
+    from rustic.config import RenderSettings, TracingConfig
+    from rustic.runtime.render import render_image
+    from rustic.scene.world import World
 
     text = (
         "v -5 0 -5\nv 5 0 -5\nv 5 0 5\nv -5 0 5\n"  # floor

@@ -3,8 +3,8 @@ correctness gate (reference: tests/correctness_tests.rs:14-52): a 0.18-
 albedo sphere inside a uniform emitter must render to ~0.8 after gamma
 decode at pixel (65, 75) of a 128x128 frame, with and without NEE/MIS.
 
-We run the same gate on the JAX CPU backend (TPU runs the identical
-program; bench.py exercises it on hardware). Rendering only a probe
+We run the same gate on the JAX CPU backend (the GPU runs the identical
+program; chip_smoke.py exercises it on the card). Rendering only a probe
 tile keeps CI fast — the wavefront integrator renders arbitrary pixel
 sets natively.
 """
@@ -12,8 +12,8 @@ sets natively.
 import numpy as np
 import pytest
 
-from rustic_tpu.config import NextEventEstimation, TracingConfig
-from rustic_tpu.runtime.render import render_pixels
+from rustic.config import NextEventEstimation, TracingConfig
+from rustic.runtime.render import render_pixels
 
 SIZE = 128
 COORD = (65, 75)
@@ -53,8 +53,8 @@ def test_furnace_mis(furnace_scene):
 )
 def test_furnace_high_spp(furnace_scene, nee):
     """512-spp furnace at the reference's exact ±0.02 tolerance — the
-    bias-vs-noise settle for both NEE modes (VERDICT round-1 item 4).
-    The TPU twin of this matrix is run by tools/tpu_roundup.py."""
+    bias-vs-noise settle for both NEE modes. tools/quality_gate.py runs
+    the same matrix on the card."""
     pixel = _furnace_value(furnace_scene, nee, samples=512)
     assert np.all(np.abs(pixel - ALBEDO) < 0.02), (nee, pixel)
 
@@ -68,10 +68,10 @@ def test_dls_matches_mis_on_black_emitters(tmp_path):
     so emitters with nonzero albedo inter-reflect and the furnace gains
     energy; the reference's own test matrix is {off, MIS} only. With
     black-albedo emitters the estimators agree in expectation."""
-    from rustic_tpu.config import RenderSettings
-    from rustic_tpu.runtime.render import render_image
-    from rustic_tpu.scene.glb_write import MaterialSpec, MeshSpec, write_glb
-    from rustic_tpu.scene.world import World
+    from rustic.config import RenderSettings
+    from rustic.runtime.render import render_image
+    from rustic.scene.glb_write import MaterialSpec, MeshSpec, write_glb
+    from rustic.scene.world import World
 
     quad = np.array([[-4, 0, -4], [4, 0, -4], [4, 0, 4], [-4, 0, 4]], np.float32)
     lamp = quad * 0.25 + np.array([0, 3, 0], np.float32)

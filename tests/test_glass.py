@@ -9,10 +9,10 @@ geometry with transmission=0 blocks it.
 import numpy as np
 import pytest
 
-from rustic_tpu.config import TracingConfig, RenderSettings
-from rustic_tpu.runtime.render import render_pixels
-from rustic_tpu.scene.gltf import GltfMaterial, GltfScene
-from rustic_tpu.scene.world import World
+from rustic.config import TracingConfig, RenderSettings
+from rustic.runtime.render import render_pixels
+from rustic.scene.gltf import GltfMaterial, GltfScene
+from rustic.scene.world import World
 
 
 def _quad(x0, x1, y0, y1, z, flip=False):
@@ -101,12 +101,12 @@ def test_glass_test_scene_loads_and_renders():
     """The generated GlassTest.glb (tools/make_scenes.py — coverage for
     the reference's stripped GlassTest scene / BASELINE config #3) must
     load with glass + lights and render identically through the brute
-    oracle and the flash engines."""
+    oracle and the BVH engine."""
     import os
 
-    from rustic_tpu.config import NextEventEstimation
-    from rustic_tpu.runtime.render import render_image
-    from rustic_tpu.scene.world import load_scene
+    from rustic.config import NextEventEstimation
+    from rustic.runtime.render import render_image
+    from rustic.scene.world import load_scene
 
     path = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -121,7 +121,7 @@ def test_glass_test_scene_loads_and_renders():
     )
     st = RenderSettings(samples=4)
     brute = np.asarray(render_image(scene, cfg, st, engine="brute"))
-    flash = np.asarray(render_image(scene, cfg, st, engine="flash"))
+    bvh = np.asarray(render_image(scene, cfg, st, engine="bvh"))
     assert np.isfinite(brute).all()
     assert brute.mean() > 0.1  # lit scene, not black
-    np.testing.assert_allclose(flash, brute, rtol=1e-4, atol=1e-5)
+    np.testing.assert_allclose(bvh, brute, rtol=1e-4, atol=1e-5)

@@ -1,7 +1,35 @@
-import numpy as np
+import hashlib
+import json
 
-from rustic_tpu.scene.gltf import load_glb
+import numpy as np
+import pytest
+
+from rustic.scene.gltf import _read_glb_chunks, load_glb
 from tests.conftest import scene_path
+
+# SHA-256 prefixes of each shipped scene's JSON chunk (without its
+# `asset` header, which names the writer) and binary chunk. The
+# reference films and the furnace gate were rendered from exactly this
+# content.
+SHIPPED_SCENES = {
+    "BreakTime.glb": ("05b2e64ca60ef052", "e28620cc20871b60"),
+    "DarkCornell.glb": ("e0b1b90b3b97879a", "270392c99c1a4ede"),
+    "FurnaceTest.glb": ("492ebd2affed5c88", "b0f5baf4ad5dc346"),
+    "GlassTest.glb": ("2a6e8cb210716c88", "e362921f97f350af"),
+    "PBRTest.glb": ("88ee54517e908d5d", "c4ca740c196cdb99"),
+    "VeachMIS.glb": ("967e051854e8a1c4", "e1b7524a3e0c2d33"),
+}
+
+
+@pytest.mark.parametrize("name", sorted(SHIPPED_SCENES))
+def test_shipped_scene_content_pinned(name):
+    with open(scene_path(name), "rb") as f:
+        chunks = _read_glb_chunks(f.read())
+    doc = json.loads(chunks[0x4E4F534A])  # 'JSON'
+    doc.pop("asset", None)
+    json_hash = hashlib.sha256(json.dumps(doc, sort_keys=True).encode()).hexdigest()[:16]
+    bin_hash = hashlib.sha256(chunks.get(0x004E4942, b"")).hexdigest()[:16]  # 'BIN'
+    assert (json_hash, bin_hash) == SHIPPED_SCENES[name]
 
 
 def test_cornell_counts():
@@ -60,7 +88,7 @@ def test_normals_unit_length():
 def test_textured_glb_roundtrip(tmp_path):
     """write_glb embeds PNG textures the loader decodes back: baseColor
     (sRGB->linear), metallicRoughness (B/G split), normal map."""
-    from rustic_tpu.scene.glb_write import MaterialSpec, MeshSpec, quad, write_glb
+    from rustic.scene.glb_write import MaterialSpec, MeshSpec, quad, write_glb
 
     albedo = np.zeros((8, 8, 3), np.float32)
     albedo[..., 0] = 0.5  # mid-gray red channel

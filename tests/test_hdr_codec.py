@@ -9,7 +9,7 @@ new-style RLE scanline encoding, and the skybox-loading entry point.
 import numpy as np
 import pytest
 
-from rustic_tpu.utils.hdr import _float_to_rgbe, read_hdr, write_hdr
+from rustic.utils.hdr import _float_to_rgbe, read_hdr, write_hdr
 
 
 def test_roundtrip_precision(tmp_path):
@@ -86,7 +86,7 @@ def test_old_style_repeat_shift(tmp_path):
 def test_skybox_loader_keeps_radiance(tmp_path):
     """load_skybox_image('.hdr') must preserve >1 radiance values (the
     old imageio path silently tonemapped to uint8 0-255)."""
-    from rustic_tpu.scene.world import load_skybox_image
+    from rustic.scene.world import load_skybox_image
 
     img = np.full((4, 8, 3), 37.5, np.float32)
     path = str(tmp_path / "sky.hdr")

@@ -11,10 +11,10 @@ import os
 import numpy as np
 import pytest
 
-from rustic_tpu.config import RenderSettings, TracingConfig
-from rustic_tpu.runtime.render import render_image
-from rustic_tpu.scene.world import World, load_skybox_image
-from rustic_tpu.scene.gltf import GltfMaterial, GltfScene
+from rustic.config import RenderSettings, TracingConfig
+from rustic.runtime.render import render_image
+from rustic.scene.world import World, load_skybox_image
+from rustic.scene.gltf import GltfMaterial, GltfScene
 
 
 def _hdr_file(tmp_path) -> str:

@@ -2,8 +2,8 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-from rustic_tpu.ops import intersect as I
-from rustic_tpu.scene.world import _triangle_features
+from rustic.ops import intersect as I
+from rustic.scene.world import _triangle_features
 
 
 def _single_triangle_scene():

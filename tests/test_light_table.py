@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from rustic_tpu.scene.light_table import (
+from rustic.scene.light_table import (
     build_light_table,
     compute_emissive_mask,
     triangle_areas,
@@ -54,7 +54,7 @@ def test_pick_pdfs_sum_to_one():
 def test_alias_sampling_matches_pdf(cornell_scene):
     """Empirical pick frequency through the device-side alias sampler
     must match the stored per-triangle probability."""
-    from rustic_tpu.ops.nee import pick_light
+    from rustic.ops.nee import pick_light
 
     scene = cornell_scene
     n = 1 << 16

@@ -1,7 +1,7 @@
 """Packed-table layout guards.
 
-The flash kernels and the shading stage communicate through packed rows
-(ATTR_*/ENTRY_* in scene/world.py). These tests pin every column against
+The intersection engines and the shading stage communicate through packed
+rows (ATTR_*/ENTRY_* in scene/world.py). These tests pin every column against
 the unpacked source arrays so a silent layout drift cannot survive CI.
 Plus end-to-end determinism: the sampler is a pure function, so renders
 must be bit-identical across runs.
@@ -9,7 +9,7 @@ must be bit-identical across runs.
 
 import numpy as np
 
-from rustic_tpu.scene import world as W
+from rustic.scene import world as W
 
 
 def test_attr_rows_match_source_arrays(cornell_world):
@@ -36,8 +36,7 @@ def test_attr_rows_match_source_arrays(cornell_world):
     np.testing.assert_array_equal(
         attrs[:n, W.ATTR_HASTEX], w.mat_has_tex[mi].astype(np.float32)
     )
-    # padding rows are inert (zero => det 0 => never valid)
-    assert not attrs[n:].any()
+    assert attrs.shape == (n, W.ATTR_WIDTH)
 
 
 def test_entry_rows_match_light_table(cornell_world):
@@ -58,27 +57,9 @@ def test_entry_rows_match_light_table(cornell_world):
         np.testing.assert_array_equal(rows[:n, tri_col].astype(np.int64), gi)
 
 
-def test_tile_aabbs_cover_their_triangles(furnace_world):
-    w = furnace_world
-    from rustic_tpu.ops.flash_intersect import tile_size
-
-    t_pad = w.tri_feats16.shape[-1] // 4
-    tt = tile_size(t_pad)
-    aabbs = w.tile_aabbs
-    pts = w.positions[w.triangles[:, :3]]
-    for j in range(len(aabbs)):
-        lo, hi = j * tt, min((j + 1) * tt, len(w.triangles))
-        if hi <= lo:
-            assert aabbs[j, 0] > aabbs[j, 4]  # inverted box for padding
-            continue
-        tile = pts[lo:hi].reshape(-1, 3)
-        assert np.all(aabbs[j, 0:3] <= tile.min(axis=0) + 1e-6)
-        assert np.all(aabbs[j, 4:7] >= tile.max(axis=0) - 1e-6)
-
-
 def test_render_is_deterministic(cornell_scene):
-    from rustic_tpu.config import NextEventEstimation, RenderSettings, TracingConfig
-    from rustic_tpu.runtime.render import render_image
+    from rustic.config import NextEventEstimation, RenderSettings, TracingConfig
+    from rustic.runtime.render import render_image
 
     cfg = TracingConfig(width=16, height=16, nee=NextEventEstimation.MIS, max_bounces=2)
     a = render_image(cornell_scene, cfg, RenderSettings(samples=3))
@@ -86,41 +67,15 @@ def test_render_is_deterministic(cornell_scene):
     np.testing.assert_array_equal(a, b)
 
 
-def test_attr_split_is_bit_exact(cornell_world):
-    """The hi/mid/lo bf16 decomposition must reconstruct tri_attrs
-    bit-for-bit ((hi+mid)+lo in f32), and the one-hot fetch in
-    gather_attr_rows must therefore equal the row gather exactly."""
+def test_gather_attr_rows_matches_row_index(cornell_scene):
+    """The shading path's one indexed fetch returns exactly the hit
+    triangle's packed row."""
     import jax.numpy as jnp
 
-    from rustic_tpu.scene.world import expand_slim_attrs, slim_attr_table
+    from rustic.ops.intersect import gather_attr_rows
 
-    scene = cornell_world.to_device()
-    assert scene.tri_attrs_split is not None
-    s = np.asarray(scene.tri_attrs_split.astype(jnp.float32))
-    rebuilt = (s[0] + s[1]) + s[2]
-    # untextured scenes split the slim row layout (half the kernel
-    # emission width); expansion must reproduce the full row exactly
-    assert not scene.has_textures
-    np.testing.assert_array_equal(
-        rebuilt, slim_attr_table(np.asarray(scene.tri_attrs))
-    )
-    # Expansion restores every column the untextured shading path can
-    # consume — including the rough/metal vec4 broadcast and albedo
-    # alpha=1, exactly as the full table stores them. The dropped
-    # columns (tangents, uvs, atlas rects, flags — only read under
-    # scene.has_textures) come back as zeros, which is also their full-
-    # table value for an untextured scene.
-    expect = np.asarray(scene.tri_attrs).copy()
-    expect[:, 18:33] = 0.0  # TAN + UV
-    expect[:, 48:56] = 0.0  # NORMTEX + HASTEX
-    np.testing.assert_array_equal(
-        np.asarray(expand_slim_attrs(jnp.asarray(rebuilt))), expect
-    )
-
-    from rustic_tpu.ops.intersect import gather_attr_rows
-
+    scene = cornell_scene
     rng = np.random.default_rng(0)
-    idx = jnp.asarray(rng.integers(0, scene.tri_attrs.shape[0], 257), jnp.int32)
-    onehot = np.asarray(gather_attr_rows(scene, idx))
-    direct = np.asarray(scene.tri_attrs)[np.asarray(idx)]
-    np.testing.assert_array_equal(onehot, direct)
+    idx = jnp.asarray(rng.integers(0, scene.n_tris, 257), jnp.int32)
+    rows = np.asarray(gather_attr_rows(scene, idx))
+    np.testing.assert_array_equal(rows, np.asarray(scene.tri_attrs)[np.asarray(idx)])

@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from rustic_tpu.config import NextEventEstimation, RenderSettings, TracingConfig
-from rustic_tpu.parallel.shard import make_mesh, render_sharded, sharded_step
+from rustic.config import NextEventEstimation, RenderSettings, TracingConfig
+from rustic.parallel.shard import make_mesh, render_sharded, sharded_step
 
 
 @pytest.fixture(scope="module")
@@ -33,7 +33,7 @@ def test_sharded_matches_single_device(cornell_scene, cfg):
     """The mesh-parallel render must equal the single-device render
     bit-for-bit-ish: the sampler is a pure function of (pixel, sample),
     so the split across devices cannot change the result."""
-    from rustic_tpu.runtime.render import render_image
+    from rustic.runtime.render import render_image
 
     settings = RenderSettings(samples=4, use_blue_noise=True)
     single = render_image(cornell_scene, cfg, settings)
@@ -71,7 +71,7 @@ def test_assemble_film_single_process():
     """Multi-host film assembly degrades to identity in one process."""
     import numpy as np
 
-    from rustic_tpu.parallel.shard import assemble_film
+    from rustic.parallel.shard import assemble_film
 
     film = np.arange(12, dtype=np.float32).reshape(4, 3)
     out = assemble_film(film)
@@ -79,92 +79,28 @@ def test_assemble_film_single_process():
 
 
 @pytest.mark.slow  # mesh renders
-def test_sharded_staged_matches_single_device(cornell_scene, cfg):
-    """The staged fast path shard_mapped over a ('px',) mesh must equal
-    the single-device staged render exactly: each stage is pure data
-    parallelism over lanes, so sharding cannot change any lane's math.
-    DarkCornell is single-tile -> exercises the unsorted driver + the
-    in-kernel attr path under shard_map."""
-    from rustic_tpu.parallel.shard import make_px_mesh, render_sharded_staged
-    from rustic_tpu.runtime import pipeline as P
-    from rustic_tpu.runtime.render import pixel_offsets
 
-    settings = RenderSettings(samples=3)
-    w, h = cfg.width, cfg.height
-    y, x = np.mgrid[0:h, 0:w]
-    px = jnp.asarray(x.reshape(-1), jnp.int32)
-    py = jnp.asarray(y.reshape(-1), jnp.int32)
-    offsets = jnp.asarray(pixel_offsets(w, h, settings.use_blue_noise))
-    single = np.asarray(
-        P.render_batch_staged(
-            cornell_scene, cfg.static_part(), cfg.dynamic_part(),
-            px, py, offsets, 0, settings.samples,
-        )
-    ).reshape(h, w, 3) / settings.samples
 
-    multi = render_sharded_staged(
-        cornell_scene, cfg, settings, mesh=make_px_mesh()
+@pytest.mark.parametrize("px_par,spp_par", [(1, 1), (2, 1), (2, 2), (4, 2), (8, 1)])
+def test_sharded_step_matches_single_device(cornell_scene, cfg, px_par, spp_par):
+    """sharded_step on a (px, spp) mesh of the virtual devices equals the
+    single-device film: pixels split over 'px', samples over 'spp', one
+    film psum."""
+    from rustic.runtime.render import pixel_offsets, render_pixels
+
+    devices = jax.devices()[: px_par * spp_par]
+    mesh = make_mesh(devices, spp_parallel=spp_par)
+    assert dict(mesh.shape) == {"px": px_par, "spp": spp_par}
+    n_px, n_samples = 64, 4
+    px = np.arange(n_px, dtype=np.int32) % 16
+    py = np.arange(n_px, dtype=np.int32) // 16
+    offsets = pixel_offsets(16, 16)[:n_px]
+    single = render_pixels(cornell_scene, cfg, px, py, n_samples, offsets=offsets)
+    fn = sharded_step(mesh, cfg.static_part(), n_samples=n_samples)
+    multi = fn(
+        cornell_scene, cfg.dynamic_part(), jnp.asarray(px), jnp.asarray(py),
+        jnp.asarray(offsets), jnp.uint32(0), jnp.zeros((n_px, 3), jnp.float32),
     )
-    np.testing.assert_allclose(multi, single, rtol=1e-5, atol=1e-6)
-
-
-def test_sharded_staged_px_spp_mesh(cornell_scene, cfg):
-    """The STAGED pipeline on a ('px','spp') mesh (round-4 verdict item
-    10): sample groups shard over 'spp' via the fold layout
-    (pipeline._stages), pixels over 'px', per-group film psum over
-    'spp'. Must equal the single-device staged render — identical
-    sample set, different decomposition (summation order differs only
-    at the psum, hence the loose-ish tolerance)."""
-    from rustic_tpu.parallel.shard import render_sharded_staged
-    from rustic_tpu.runtime import pipeline as P
-    from rustic_tpu.runtime.render import pixel_offsets
-
-    settings = RenderSettings(samples=4)
-    w, h = cfg.width, cfg.height
-    y, x = np.mgrid[0:h, 0:w]
-    px = jnp.asarray(x.reshape(-1), jnp.int32)
-    py = jnp.asarray(y.reshape(-1), jnp.int32)
-    offsets = jnp.asarray(pixel_offsets(w, h, settings.use_blue_noise))
-    single = np.asarray(
-        P.render_batch_staged(
-            cornell_scene, cfg.static_part(), cfg.dynamic_part(),
-            px, py, offsets, 0, settings.samples,
-        )
-    ).reshape(h, w, 3) / settings.samples
-
-    for spp_par in (2, 4):
-        mesh = make_mesh(spp_parallel=spp_par)
-        multi = render_sharded_staged(
-            cornell_scene, cfg, settings, mesh=mesh
-        )
-        np.testing.assert_allclose(multi, single, rtol=2e-5, atol=2e-6)
-
-
-@pytest.mark.slow  # mesh renders
-def test_sharded_staged_sorted_path(furnace_scene):
-    """Multi-tile scene -> the sorted staged driver under the mesh (per
-    -shard sorting; film scatter-add stays shard-local)."""
-    from rustic_tpu.parallel.shard import make_px_mesh, render_sharded_staged
-    from rustic_tpu.runtime import pipeline as P
-    from rustic_tpu.runtime.render import pixel_offsets
-
-    config = TracingConfig(
-        width=16, height=16, max_bounces=2, nee=NextEventEstimation.MIS
+    np.testing.assert_allclose(
+        np.asarray(multi), np.asarray(single), rtol=1e-5, atol=1e-6
     )
-    settings = RenderSettings(samples=2)
-    w, h = config.width, config.height
-    y, x = np.mgrid[0:h, 0:w]
-    px = jnp.asarray(x.reshape(-1), jnp.int32)
-    py = jnp.asarray(y.reshape(-1), jnp.int32)
-    offsets = jnp.asarray(pixel_offsets(w, h, settings.use_blue_noise))
-    single = np.asarray(
-        P.render_batch_staged(
-            furnace_scene, config.static_part(), config.dynamic_part(),
-            px, py, offsets, 0, settings.samples,
-        )
-    ).reshape(h, w, 3) / settings.samples
-
-    multi = render_sharded_staged(
-        furnace_scene, config, settings, mesh=make_px_mesh()
-    )
-    np.testing.assert_allclose(multi, single, rtol=1e-5, atol=1e-6)

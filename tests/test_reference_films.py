@@ -1,6 +1,6 @@
 """Quality gates against committed ground-truth films.
 
-assets/reference/ holds high-spp films rendered by the validated TPU
+assets/reference/ holds high-spp films rendered by an earlier validated
 build (256x144; DarkCornell 2048 spp MIS, FurnaceTest 1024 spp, VeachMIS
 1024 spp). A current low-spp render must agree in energy (tight) and in
 per-pixel RMSE (noise-bounded) — the BASELINE.md RMSE-vs-reference gate,
@@ -13,9 +13,9 @@ import os
 import numpy as np
 import pytest
 
-from rustic_tpu.config import NextEventEstimation, RenderSettings, TracingConfig
-from rustic_tpu.runtime.render import render_image
-from rustic_tpu.scene.world import World
+from rustic.config import NextEventEstimation, RenderSettings, TracingConfig
+from rustic.runtime.render import render_image
+from rustic.scene.world import World
 from tests.conftest import scene_path
 
 REF_DIR = os.path.join(
@@ -68,7 +68,7 @@ def test_against_reference_film(name, ref_file, cfg_kw):
     ref = np.load(path)
     skybox = None
     if cfg_kw.get("has_skybox"):
-        from rustic_tpu.scene.world import load_skybox_image
+        from rustic.scene.world import load_skybox_image
 
         skybox = load_skybox_image(scene_path(f"{name}Sky.npy"))
     scene = World.from_path(scene_path(f"{name}.glb")).to_device(skybox)

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from rustic_tpu.ops import rng
+from rustic.ops import rng
 
 
 def test_lds_range_and_determinism():
@@ -64,7 +64,7 @@ class TestBlueNoise:
     (src/trace.rs:149-160)."""
 
     def test_table_is_permutation(self):
-        from rustic_tpu.runtime.render import _bluenoise_table
+        from rustic.runtime.render import _bluenoise_table
 
         t = _bluenoise_table()
         assert t is not None and t.shape == (128, 128)
@@ -79,7 +79,7 @@ class TestBlueNoise:
         noise: that's the property that makes per-pixel seed offsets
         turn sample error into high-frequency (visually uniform)
         noise."""
-        from rustic_tpu.runtime.render import _bluenoise_table
+        from rustic.runtime.render import _bluenoise_table
 
         t = _bluenoise_table().astype(np.float64) / 2**32 - 0.5
         f = np.abs(np.fft.fft2(t)) ** 2
@@ -92,7 +92,7 @@ class TestBlueNoise:
         assert lo < 0.2 * hi, (lo, hi)
 
     def test_pixel_offsets_tile(self):
-        from rustic_tpu.runtime.render import _bluenoise_table, pixel_offsets
+        from rustic.runtime.render import _bluenoise_table, pixel_offsets
 
         t = _bluenoise_table()
         off = pixel_offsets(300, 200, use_blue_noise=True).reshape(200, 300)

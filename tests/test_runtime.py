@@ -3,8 +3,8 @@ import os
 import numpy as np
 import pytest
 
-from rustic_tpu.config import NextEventEstimation, RenderSettings, TracingConfig
-from rustic_tpu.runtime.state import Checkpoint, TracingState
+from rustic.config import NextEventEstimation, RenderSettings, TracingConfig
+from rustic.runtime.state import Checkpoint, TracingState
 
 
 @pytest.fixture(scope="module")
@@ -80,7 +80,7 @@ def test_checkpoint_roundtrip(cornell_scene, small_cfg, tmp_path):
 
 
 def test_denoise_reduces_noise():
-    from rustic_tpu.runtime.denoise import denoise
+    from rustic.runtime.denoise import denoise
 
     rng = np.random.default_rng(0)
     clean = np.tile(
@@ -96,7 +96,7 @@ def test_denoise_reduces_noise():
 
 def test_render_image_batching_consistent(cornell_scene, small_cfg):
     """Chunked megabatches must produce the same film as one batch."""
-    from rustic_tpu.runtime.render import render_image
+    from rustic.runtime.render import render_image
 
     s_one = RenderSettings(samples=2, batch_pixels=1 << 20)
     s_chunked = RenderSettings(samples=2, batch_pixels=64)
@@ -118,7 +118,7 @@ def test_resize_via_set_config(cornell_scene, small_cfg):
 
 def test_settings_engine_reaches_render(cornell_scene, small_cfg, monkeypatch):
     """The progressive driver honors RenderSettings.engine."""
-    import rustic_tpu.runtime.state as state_mod
+    import rustic.runtime.state as state_mod
 
     seen = {}
     real = state_mod.render_pixels
@@ -138,7 +138,7 @@ def test_settings_engine_reaches_render(cornell_scene, small_cfg, monkeypatch):
 def test_checkpoint_resume_is_exact(cornell_scene, small_cfg, tmp_path):
     """into_state assigns the stored film sum directly — no mean
     round-trip error."""
-    from rustic_tpu.runtime.state import Checkpoint
+    from rustic.runtime.state import Checkpoint
 
     state = TracingState(8, 8, small_cfg, RenderSettings(sync_rate=3))
     state.step(cornell_scene)

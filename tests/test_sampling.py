@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from rustic_tpu.ops import sampling as s
+from rustic.ops import sampling as s
 
 
 def _rand(shape, seed=0):

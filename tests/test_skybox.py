@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from rustic_tpu.ops.skybox import image_sky, procedural_sky
+from rustic.ops.skybox import image_sky, procedural_sky
 
 
 def _sun():
@@ -61,8 +61,8 @@ def test_deferred_sky_compact_matches_full():
 
     import jax
 
-    from rustic_tpu.ops import trace as trace_mod
-    from rustic_tpu.ops.skybox import sky_radiance
+    from rustic.ops import trace as trace_mod
+    from rustic.ops.skybox import sky_radiance
 
     batch = 2 * trace_mod._SKY_SEG * trace_mod._SKY_SEGS_K  # compact path
     rng = np.random.default_rng(7)

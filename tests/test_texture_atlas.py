@@ -1,8 +1,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from rustic_tpu.ops.texture import sample_atlas, sample_bilinear
-from rustic_tpu.scene.atlas import pack_textures
+from rustic.ops.texture import sample_atlas, sample_bilinear
+from rustic.scene.atlas import pack_textures
 
 
 def test_bilinear_exact_texel_centers():
@@ -75,7 +75,7 @@ def test_atlas_taps_stay_in_cell():
     texels (the reference bleeds there — quadtree cells have no gutter)."""
     import jax.numpy as jnp
 
-    from rustic_tpu.ops.texture import sample_atlas
+    from rustic.ops.texture import sample_atlas
 
     # 8x8 atlas: left half red cell, right half green cell.
     atlas = np.zeros((8, 8, 4), np.float32)
@@ -94,8 +94,8 @@ def test_material_atlas_colocated_channels():
     that map alone with the per-texture packer (round-5 gather fix)."""
     import jax.numpy as jnp
 
-    from rustic_tpu.ops.texture import sample_atlas
-    from rustic_tpu.scene.atlas import (
+    from rustic.ops.texture import sample_atlas
+    from rustic.scene.atlas import (
         CH_ALBEDO,
         CH_METAL,
         CH_NORMAL,
@@ -133,7 +133,7 @@ def test_material_atlas_colocated_channels():
         y = int(round(float(uvsts[0][1]) * 64))
         w = int(round(float(uvsts[0][2]) * 64))
         h = int(round(float(uvsts[0][3]) * 64))
-        from rustic_tpu.scene.atlas import _resize_lanczos
+        from rustic.scene.atlas import _resize_lanczos
 
         expect_cell = _resize_lanczos(tex, w, h)[::-1]
         np.testing.assert_array_equal(
@@ -148,7 +148,7 @@ def test_equirect_seam_interpolates():
     instead of clamping (no vertical seam line)."""
     import jax.numpy as jnp
 
-    from rustic_tpu.ops.texture import sample_bilinear
+    from rustic.ops.texture import sample_bilinear
 
     img = np.zeros((4, 8, 3), np.float32)
     img[:, 0] = [1.0, 0.0, 0.0]

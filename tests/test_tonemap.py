@@ -2,8 +2,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from rustic_tpu.config import Tonemapping
-from rustic_tpu.ops.tonemap import apply_tonemap
+from rustic.config import Tonemapping
+from rustic.ops.tonemap import apply_tonemap
 
 
 @pytest.mark.parametrize("op", list(Tonemapping))
@@ -51,7 +51,7 @@ def test_aces_narkowicz_pre_exposure():
     the overexposed variant is the bare curve (:139-140)."""
     import jax.numpy as jnp
 
-    from rustic_tpu.config import Tonemapping
+    from rustic.config import Tonemapping
 
     x = jnp.full((1, 3), 1.0)
     default = np.asarray(
@@ -67,3 +67,44 @@ def test_aces_narkowicz_pre_exposure():
     v = 0.6
     expect = (v * (a * v + b)) / (v * (c * v + d) + e)
     np.testing.assert_allclose(default, expect, rtol=1e-6)
+
+
+def _np_reference(op, x):
+    """float64 NumPy twins of the operators (render.wgsl:36-117)."""
+    def narkowicz(v):
+        return np.clip((v * (2.51 * v + 0.03)) / (v * (2.43 * v + 0.59) + 0.14), 0, 1)
+
+    def curve(v, a, b, c, d, e, f):
+        return ((v * (a * v + c * b) + d * e) / (v * (a * v + b) + d * f)) - e / f
+
+    if op == Tonemapping.NONE:
+        return x
+    if op == Tonemapping.REINHARD:
+        return x / (x + 1.0)
+    if op == Tonemapping.ACES_NARKOWICZ:
+        return narkowicz(x * 0.6)
+    if op == Tonemapping.ACES_NARKOWICZ_OVEREXPOSED:
+        return narkowicz(x)
+    if op == Tonemapping.ACES_HILL:
+        m_in = np.array([[0.59719, 0.35458, 0.04823], [0.07600, 0.90834, 0.01566],
+                         [0.02840, 0.13383, 0.83777]])
+        m_out = np.array([[1.60475, -0.53108, -0.07367], [-0.10208, 1.10813, -0.00605],
+                          [-0.00327, -0.07276, 1.07602]])
+        c = x @ m_in.T
+        c = (c * (c + 0.0245786) - 0.000090537) / (c * (0.983729 * c + 0.4329510) + 0.238081)
+        return np.clip(c @ m_out.T, 0, 1)
+    if op == Tonemapping.NEUTRAL:
+        k = (0.2, 0.29, 0.24, 0.272, 0.02, 0.3)
+        ws = 1.0 / curve(5.3, *k)
+        return curve(x * ws, *k) * ws
+    uc = (0.15, 0.50, 0.10, 0.20, 0.02, 0.30)
+    return curve(x * 2.0, *uc) / curve(11.2, *uc)
+
+
+@pytest.mark.parametrize("op", list(Tonemapping))
+def test_matches_float64_reference(op):
+    """Each operator, including ACES Hill's 3x3 colour matrices (pinned
+    to full f32, not TF32), agrees with float64 NumPy to f32 rounding."""
+    x = np.random.default_rng(int(op)).uniform(0.0, 8.0, (64, 3))
+    got = np.asarray(apply_tonemap(jnp.asarray(x, jnp.float32), op, gamma_encode=False))
+    np.testing.assert_allclose(got, _np_reference(op, x), rtol=2e-5, atol=2e-6)

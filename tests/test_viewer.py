@@ -2,8 +2,8 @@
 
 import numpy as np
 
-from rustic_tpu.config import NextEventEstimation, RenderSettings, TracingConfig
-from rustic_tpu.runtime.viewer import Viewer
+from rustic.config import NextEventEstimation, RenderSettings, TracingConfig
+from rustic.runtime.viewer import Viewer
 
 
 def _viewer(cornell_scene):

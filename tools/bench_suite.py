@@ -3,8 +3,8 @@ driver configs (BASELINE.md table; reference: benches/benchmark.rs:8-27
 times startup and DarkCornell only).
 
 Per config: scene build (startup) seconds, steady-state camera-path
-throughput (Mpaths/s, hard-synced through np.asarray), and spp/s at the
-config's resolution. `--scale N` divides spp by N (the full spp counts
+throughput (Mpaths/s) and spp/s at the config's resolution, on a GPU
+only (without one it exits non-zero). `--scale N` divides spp by N (the full spp counts
 are hour-scale on one chip); resolution is kept so kernel shapes match
 the real config.
 
@@ -39,13 +39,13 @@ CONFIGS = {
 def run_config(idx: int, spec: dict, scale: int) -> dict:
     import jax
 
-    from rustic_tpu.config import (
+    from rustic.config import (
         NextEventEstimation,
         RenderSettings,
         TracingConfig,
     )
-    from rustic_tpu.runtime.render import render_image
-    from rustic_tpu.scene.world import World, load_skybox_image
+    from rustic.runtime.render import render_image
+    from rustic.scene.world import World, load_skybox_image
 
     scenes = os.path.join(
         os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
@@ -76,28 +76,15 @@ def run_config(idx: int, spec: dict, scale: int) -> dict:
         kwargs["cam_position"] = (0.0, 1.8, -3.2)
     config = TracingConfig(**kwargs)
 
-    # warm: compile every stage shape the timed run uses. The fold (and
-    # therefore every executable's lane count) depends on the sample
-    # count, so warming with samples=1 compiles the WRONG shapes and
-    # the timed window pays all the real compiles (observed: config 1
-    # at 0.064 Mpaths/s with the compile inside `wall`). Warm with one
-    # full fold-group instead — the same shapes the timed run runs.
-    from rustic_tpu.runtime.pipeline import pick_sample_fold
-
-    settings = RenderSettings(samples=spp)
-    batch = min(int(settings.batch_pixels), w * h)
+    # warm: the sample count is a traced value, so one sample compiles
+    # the program the timed render runs
     t0 = time.time()
-    film = render_image(
-        scene, config,
-        RenderSettings(samples=pick_sample_fold(batch, spp)),
-    )
-    np.asarray(film[:1])
+    np.asarray(render_image(scene, config, RenderSettings(samples=1)))
     warm_s = time.time() - t0
 
     t0 = time.time()
     film = render_image(scene, config, RenderSettings(samples=spp))
-    np.asarray(film[:1])  # hard sync (block_until_ready can return early)
-    wall = time.time() - t0
+    wall = time.time() - t0  # render_image reads the film back: synced
 
     paths = w * h * spp
     return dict(
@@ -105,7 +92,7 @@ def run_config(idx: int, spec: dict, scale: int) -> dict:
         scene=spec["scene"],
         size=f"{w}x{h}",
         spp=spp,
-        backend=jax.default_backend(),
+        device_kind=jax.devices()[0].device_kind,
         startup_s=round(startup_s, 3),
         warmup_s=round(warm_s, 1),
         wall_s=round(wall, 2),
@@ -124,6 +111,11 @@ def main():
                     help="write the results as a JSON artifact (the "
                          "at-spec record the verdict asks to commit)")
     args = ap.parse_args()
+    import jax
+
+    if jax.devices()[0].platform != "gpu":
+        print("bench_suite: needs a GPU", file=sys.stderr)
+        return 1
     results = []
     for idx in (int(v) for v in args.configs.split(",")):
         try:
@@ -163,4 +155,4 @@ def _write_out(path, results, scale):
 
 
 if __name__ == "__main__":
-    main()
+    sys.exit(main())

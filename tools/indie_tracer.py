@@ -5,8 +5,8 @@ JAX oracle had ever validated the pipeline. The reference binary cannot
 be built here (no rustc/cargo in the image and zero network egress —
 see CROSSCHECK.md for the recorded attempt), so this is the next-best
 independent check: a from-scratch NumPy path tracer sharing NO compute
-code with rustic_tpu — its own Möller–Trumbore (the 1997 paper's
-pvec/qvec form, not the repo's MXU factorization), its own counter-based
+code with rustic — its own Möller–Trumbore (the 1997 paper's
+pvec/qvec form, not the repo's matmul factorization), its own counter-based
 RNG (NumPy Philox — the repo uses an R2 LDS), and its own vectorized
 control structure (dense masked lanes; the repo stages/compacts).
 
@@ -23,11 +23,11 @@ furnace sphere E[weight] 0.209 vs the textbook 0.185 for the same f),
 so "any unbiased estimator of the same f" does NOT reproduce the
 reference; the estimator is part of the image's definition.
 
-Shared deliberately: the scene LOADER (rustic_tpu.scene — geometry/
+Shared deliberately: the scene LOADER (rustic.scene — geometry/
 material extraction is host-side preprocessing, and sharing it makes
 the comparison isolate the *transport + integrator*), and the transport
 semantics that DEFINE the image, mirrored from the reference's kernel
-(via SURVEY.md / rustic_tpu docstrings, cited inline):
+(via SURVEY.md / rustic docstrings, cited inline):
 
 - pinhole camera: u,v in [-1,1], aspect-scaled v, Ry(yaw)Rx(pitch)
   (kernels/src/lib.rs:47-51)
@@ -70,7 +70,7 @@ EPS = 1e-3  # kernels/src/util.rs:5
 
 class Scene:
     def __init__(self, path):
-        from rustic_tpu.scene.world import World
+        from rustic.scene.world import World
 
         w = World.from_path(path)
         tris = w.triangles

@@ -2,7 +2,7 @@
 
 The reference's benchmark/correctness suite references GlassTest.glb and
 BreakTime.glb, both removed by .MISSING_LARGE_BLOBS; this regenerates
-equivalent-coverage scenes with rustic_tpu's own GLB writer:
+equivalent-coverage scenes with rustic's own GLB writer:
 
 - GlassTest.glb — BASELINE config #3 (dielectric refraction, long
   specular chains): two glass spheres (smooth ior 1.5 and rough ior
@@ -26,7 +26,7 @@ import numpy as np
 
 sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
-from rustic_tpu.scene.glb_write import (  # noqa: E402
+from rustic.scene.glb_write import (  # noqa: E402
     MaterialSpec,
     MeshSpec,
     icosphere,

@@ -37,13 +37,13 @@ def main():
 
     import jax
 
-    from rustic_tpu.config import (
+    from rustic.config import (
         NextEventEstimation,
         RenderSettings,
         TracingConfig,
     )
-    from rustic_tpu.runtime.state import TracingState
-    from rustic_tpu.scene.world import World
+    from rustic.runtime.state import TracingState
+    from rustic.scene.world import World
 
     w, h = (int(v) for v in args.size.split("x"))
     scenes = os.path.join(

@@ -2,16 +2,15 @@
 
 Two parts, each one JSON line per case:
 
-1. Furnace matrix at HIGH spp on the current backend with the DEFAULT
-   precision plan: pixel (65,75) of FurnaceTest at 128^2 must equal the
+1. Furnace matrix at HIGH spp on the current backend with the default
+   engine: pixel (65,75) of FurnaceTest at 128^2 must equal the
    0.8 albedo within the reference's own +-0.02 after gamma decode
    (reference: tests/correctness_tests.rs:14-33) — the round-1 verdict
    asked for exactly this bias-vs-noise settle (VERDICT item 4).
 
 2. RMSE vs the committed ground-truth films (assets/reference/,
-   rendered by the f32-dot bvh-oracle engine at 1024-2048 spp): each
-   film's config re-renders at the SAME spp with the DEFAULT plan and
-   engine. The sampler is a pure function of (pixel, sample), so both
+   rendered by the bvh-oracle engine at 1024-2048 spp): each film's
+   config re-renders at the SAME spp with the default engine. The sampler is a pure function of (pixel, sample), so both
    renders integrate the identical sample set and the RMSE measures
    ENGINE divergence, not Monte-Carlo noise — this is how the
    BASELINE.md "RMSE < 1e-3 vs the 1024-spp reference" target is
@@ -68,95 +67,53 @@ def _write_out(path):
 
 
 def furnace_matrix(spp):
-    from rustic_tpu.config import NextEventEstimation, TracingConfig
-    from rustic_tpu.runtime.render import render_pixels
-    from rustic_tpu.scene.world import World
+    from rustic.config import NextEventEstimation
+    from rustic.scene.world import World
+    from rustic.utils.compare import furnace_probe
 
     scene = World.from_path(os.path.join(SCENES, "FurnaceTest.glb")).to_device()
-    for nee, label in (
-        (NextEventEstimation.NONE, "off"),
-        (NextEventEstimation.MIS, "mis"),
-    ):
-        config = TracingConfig(width=128, height=128, nee=nee)
-        film = render_pixels(
-            scene, config, np.array([65], np.int32), np.array([75], np.int32),
-            spp,
-        )
-        probe = float((np.asarray(film)[0, 0] / spp) ** (1 / 2.2))
+    for nee in (NextEventEstimation.NONE, NextEventEstimation.MIS):
+        probe = furnace_probe(scene, nee, spp)
         emit(
-            gate="furnace", nee=label, spp=spp, probe=round(probe, 4),
-            ok=bool(abs(probe - 0.8) < 0.02),
+            gate="furnace", nee=nee.name.lower(), spp=spp,
+            probe=[round(float(p), 4) for p in probe],
+            ok=bool(np.all(np.abs(probe - 0.8) < 0.02)),
         )
 
 
-FILM_CASES = [
-    ("DarkCornell.glb", None, "darkcornell_256x144_2048spp.npy", 2048, {}),
-    ("FurnaceTest.glb", None, "furnacetest_256x144_1024spp.npy", 1024,
-     dict(nee="none")),
-    ("VeachMIS.glb", None, "veachmis_256x144_1024spp.npy", 1024,
-     dict(cam_position=(5.0, 3.0, -10.0), cam_rotation=(0.25, 0.05))),
-    ("GlassTest.glb", None, "glasstest_256x144_1024spp.npy", 1024,
-     dict(cam_position=(0.0, 2.2, -6.5), cam_rotation=(0.15, 0.0))),
-    ("BreakTime.glb", "BreakTimeSky.npy", "breaktime_256x144_1024spp.npy",
-     1024, dict(cam_position=(0.0, 1.8, -3.2), has_skybox=True)),
-    # At-SPEC-resolution ground truths (tools/make_reference_films.py,
-    # BVH-oracle engine; round-4 verdict weakness 7 — BASELINE.md's
-    # gate is defined at the config resolutions). Film size is parsed
-    # from the filename; cases whose film is absent emit
-    # "reference film missing" and are skipped.
-    ("DarkCornell.glb", None, "darkcornell_512x512_256spp.npy", 256, {}),
-    ("GlassTest.glb", None, "glasstest_512x512_256spp.npy", 256,
-     dict(cam_position=(0.0, 2.2, -6.5), cam_rotation=(0.15, 0.0))),
-    ("VeachMIS.glb", None, "veachmis_1024x1024_128spp.npy", 128,
-     dict(cam_position=(5.0, 3.0, -10.0), cam_rotation=(0.25, 0.05))),
-    ("BreakTime.glb", "BreakTimeSky.npy", "breaktime_1920x1080_64spp.npy",
-     64, dict(cam_position=(0.0, 1.8, -3.2), has_skybox=True)),
-]
+def film_cases():
+    """The five committed 256x144 films plus the at-spec-resolution
+    ones (tools/make_reference_films.py); a case whose film is absent
+    reports "reference film missing"."""
+    from rustic.utils.compare import REFERENCE_FILMS
+
+    return REFERENCE_FILMS + [
+        ("DarkCornell.glb", None, "darkcornell_512x512_256spp.npy", 256, {}),
+        ("GlassTest.glb", None, "glasstest_512x512_256spp.npy", 256,
+         dict(cam_position=(0.0, 2.2, -6.5), cam_rotation=(0.15, 0.0))),
+        ("VeachMIS.glb", None, "veachmis_1024x1024_128spp.npy", 128,
+         dict(cam_position=(5.0, 3.0, -10.0), cam_rotation=(0.25, 0.05))),
+        ("BreakTime.glb", "BreakTimeSky.npy", "breaktime_1920x1080_64spp.npy",
+         64, dict(cam_position=(0.0, 1.8, -3.2), has_skybox=True)),
+    ]
 
 
 def film_rmse(cases):
-    from rustic_tpu.config import (
-        NextEventEstimation,
-        RenderSettings,
-        TracingConfig,
-    )
-    from rustic_tpu.runtime.render import render_image
-    from rustic_tpu.scene.world import World, load_skybox_image
+    from rustic.utils.compare import reference_film_rmse
 
-    for name, sky, ref_file, spp, cfg_kw in cases:
-        path = os.path.join(REF, ref_file)
-        if not os.path.exists(path):
+    for case in cases:
+        name, ref_file = case[0], case[2]
+        if not os.path.exists(os.path.join(REF, ref_file)):
             emit(gate="rmse", scene=name, error="reference film missing")
             continue
-        ref = np.load(path)
-        kw = dict(cfg_kw)
-        nee = (
-            NextEventEstimation.NONE
-            if kw.pop("nee", None) == "none"
-            else NextEventEstimation.MIS
-        )
-        skybox = (
-            load_skybox_image(os.path.join(SCENES, sky)) if sky else None
-        )
-        scene = World.from_path(os.path.join(SCENES, name)).to_device(skybox)
-        w, h = (int(v) for v in ref_file.split("_")[1].split("x"))
-        config = TracingConfig(width=w, height=h, nee=nee, **kw)
         t0 = time.time()
-        film = np.asarray(
-            render_image(scene, config, RenderSettings(samples=spp))
-        )
-        wall = time.time() - t0
-        d = film - ref
-        rmse = float(np.sqrt((d * d).mean()))
+        r = reference_film_rmse(case)
         emit(
-            gate="rmse", scene=name, size=f"{w}x{h}", spp=spp,
-            wall_s=round(wall, 1),
-            rmse=round(rmse, 6), target="<1e-3", ok=bool(rmse < 1e-3),
-            rel_energy=round(
-                float(abs(film.mean() - ref.mean()) / max(ref.mean(), 1e-9)),
-                6,
-            ),
-            max_abs_d=round(float(np.abs(d).max()), 5),
+            gate="rmse", scene=name, size=r["size"], spp=r["spp"],
+            wall_s=round(time.time() - t0, 1),
+            rmse=round(r["rmse"], 6), target="<1e-3", ok=bool(r["rmse"] < 1e-3),
+            rel_energy=round(r["rel_energy"], 6),
+            max_abs_d=round(r["max_abs_d"], 5),
         )
 
 
@@ -174,10 +131,10 @@ def main():
 
     import jax
 
-    emit(backend=jax.default_backend())
+    emit(platform=jax.devices()[0].platform, device_kind=jax.devices()[0].device_kind)
     if not args.skip_furnace:
         furnace_matrix(args.furnace_spp)
-    cases = FILM_CASES
+    cases = film_cases()
     if args.cases != "all":
         keep = set(args.cases.lower().split(","))
         cases = [c for c in cases if c[0].lower().split(".")[0] in keep]
